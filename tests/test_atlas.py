@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from visual_sgraphs_tpu.config import CapacityConfig, OrbConfig
-from visual_sgraphs_tpu.core import lie
-from visual_sgraphs_tpu.slam.atlas import merge_maps, transform_map
-from visual_sgraphs_tpu.slam.map_state import empty_map
+from visual_sgraphs.config import CapacityConfig, OrbConfig
+from visual_sgraphs.core import lie
+from visual_sgraphs.slam.atlas import merge_maps, transform_map
+from visual_sgraphs.slam.map_state import empty_map
 
 
 def _mini_map(rng, n_kf, n_pt, cap=None, orb=None, offset=0.0):
@@ -103,11 +103,11 @@ def test_merge_respects_capacity(rng):
 def test_elastic_recovery_and_merge():
     """Blind the camera mid-orbit: tracking dies, a fresh map starts, and
     the revisit merges the young map back into the stashed one."""
-    from visual_sgraphs_tpu.config import (
+    from visual_sgraphs.config import (
         PlaceConfig, Sensor, SystemConfig, TrackingConfig,
     )
-    from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-    from visual_sgraphs_tpu.slam import SlamSystem
+    from visual_sgraphs.io.synthetic import SyntheticScene
+    from visual_sgraphs.slam import SlamSystem
 
     scene = SyntheticScene()
     cfg = SystemConfig(

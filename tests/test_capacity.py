@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from visual_sgraphs_tpu.config import (
+from visual_sgraphs.config import (
     CameraConfig,
     CapacityConfig,
     MappingConfig,
@@ -24,10 +24,10 @@ from visual_sgraphs_tpu.config import (
     SystemConfig,
     TrackingConfig,
 )
-from visual_sgraphs_tpu.core import geometry, lie
-from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-from visual_sgraphs_tpu.slam import SlamSystem, mapping
-from visual_sgraphs_tpu.slam.map_state import empty_map
+from visual_sgraphs.core import geometry, lie
+from visual_sgraphs.io.synthetic import SyntheticScene
+from visual_sgraphs.slam import SlamSystem, mapping
+from visual_sgraphs.slam.map_state import empty_map
 
 
 def _map_with_kfs(n_kf: int, cap=None):
@@ -75,7 +75,7 @@ def test_insert_reuses_host_chosen_slot_and_evicts():
     (capacity eviction), sequence numbers stay monotone."""
     m = _map_with_kfs(8)  # full (K=8)
     frame_like = None
-    from visual_sgraphs_tpu.slam.frame import FrameObs
+    from visual_sgraphs.slam.frame import FrameObs
 
     F = m.F
     frame_like = FrameObs(

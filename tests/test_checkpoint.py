@@ -11,20 +11,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from visual_sgraphs_tpu.config import (
+from visual_sgraphs.config import (
     CapacityConfig,
     OrbConfig,
     PlaceConfig,
     Sensor,
     SystemConfig,
 )
-from visual_sgraphs_tpu.io.checkpoint import (
+from visual_sgraphs.io.checkpoint import (
     FORMAT_VERSION,
     load_checkpoint,
     save_checkpoint,
 )
-from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-from visual_sgraphs_tpu.slam import SlamSystem
+from visual_sgraphs.io.synthetic import SyntheticScene
+from visual_sgraphs.slam import SlamSystem
 
 
 def _cfg(scene):

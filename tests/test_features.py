@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from visual_sgraphs_tpu.features import (
+from visual_sgraphs.features import (
     OrbParams,
     extract_orb,
     fast_score,
@@ -12,7 +12,7 @@ from visual_sgraphs_tpu.features import (
     match_nn_ratio,
     match_window,
 )
-from visual_sgraphs_tpu.features.orb import level_budgets
+from visual_sgraphs.features.orb import level_budgets
 
 
 def square_grid(h=96, w=128, sq=10, pitch=24):

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from visual_sgraphs_tpu.config import CapacityConfig
-from visual_sgraphs_tpu.scenegraph import freespace as fs
-from visual_sgraphs_tpu.scenegraph.manager import detect_rooms
-from visual_sgraphs_tpu.scenegraph.state import (
+from visual_sgraphs.config import CapacityConfig
+from visual_sgraphs.scenegraph import freespace as fs
+from visual_sgraphs.scenegraph.manager import detect_rooms
+from visual_sgraphs.scenegraph.state import (
     GROUND,
     WALL,
     empty_scenegraph,
@@ -147,7 +147,7 @@ def test_freespace_grid_clusters_two_volumes():
 def test_accumulate_freespace_marks_interior():
     """Rays through a synthetic depth image mark interior voxels free and
     never mark voxels beyond the measured surface."""
-    from visual_sgraphs_tpu.core import lie
+    from visual_sgraphs.core import lie
 
     G = 32
     vox = jnp.asarray(0.25, jnp.float32)

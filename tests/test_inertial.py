@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from visual_sgraphs_tpu.core import lie
-from visual_sgraphs_tpu.inertial import (
+from visual_sgraphs.core import lie
+from visual_sgraphs.inertial import (
     apply_scaled_rotation,
     bias_corrected_delta,
     inertial_init,
@@ -16,8 +16,8 @@ from visual_sgraphs_tpu.inertial import (
     predict_state,
     preintegrate,
 )
-from visual_sgraphs_tpu.inertial import factors as ifac
-from visual_sgraphs_tpu.inertial.preintegration import GRAVITY
+from visual_sgraphs.inertial import factors as ifac
+from visual_sgraphs.inertial.preintegration import GRAVITY
 
 T_BC_IDENTITY = jnp.asarray([1.0, 0, 0, 0, 0, 0, 0])
 
@@ -178,9 +178,9 @@ class TestInertialInit:
     def test_recovers_gravity_and_velocity(self):
         """Keyframes from the synthetic IMU generator: init must find the
         true gravity direction (y-down world) and sane velocities."""
-        from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-        from visual_sgraphs_tpu.inertial.pipeline import ImuPipeline
-        from visual_sgraphs_tpu.config import ImuConfig
+        from visual_sgraphs.io.synthetic import SyntheticScene
+        from visual_sgraphs.inertial.pipeline import ImuPipeline
+        from visual_sgraphs.config import ImuConfig
 
         scene = SyntheticScene(h=64, w=64)  # images unused; tiny render
         pipe = ImuPipeline(ImuConfig(), max_keyframes=32, fix_scale=True)
@@ -212,8 +212,8 @@ class TestInertialInit:
         assert float(jnp.max(jnp.abs(res.bias_g))) < 0.02
 
     def test_apply_scaled_rotation_aligns_gravity(self, rng):
-        from visual_sgraphs_tpu.slam.map_state import empty_map
-        from visual_sgraphs_tpu.config import CapacityConfig, OrbConfig
+        from visual_sgraphs.slam.map_state import empty_map
+        from visual_sgraphs.config import CapacityConfig, OrbConfig
 
         m = empty_map(CapacityConfig(max_keyframes=8, max_points=64),
                       OrbConfig(n_features=16))
@@ -239,12 +239,12 @@ class TestInertialInit:
 @pytest.mark.slow
 class TestVisualInertialE2E:
     def test_rgbd_inertial_tracks_and_initializes(self):
-        from visual_sgraphs_tpu.config import (
+        from visual_sgraphs.config import (
             CapacityConfig, OrbConfig, Sensor, SystemConfig,
         )
-        from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-        from visual_sgraphs_tpu.slam import SlamSystem
-        from visual_sgraphs_tpu.core import geometry
+        from visual_sgraphs.io.synthetic import SyntheticScene
+        from visual_sgraphs.slam import SlamSystem
+        from visual_sgraphs.core import geometry
 
         scene = SyntheticScene()
         cfg = SystemConfig(

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from visual_sgraphs_tpu.core import lie
+from visual_sgraphs.core import lie
 
 
 def random_quat(rng, n=None):

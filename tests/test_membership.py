@@ -7,16 +7,16 @@ proxy failed both ways, VERDICT r4 Missing #8)."""
 import jax.numpy as jnp
 import numpy as np
 
-from visual_sgraphs_tpu.config import CapacityConfig, OrbConfig
-from visual_sgraphs_tpu.core import lie
-from visual_sgraphs_tpu.scenegraph.manager import refine_points_semantic
-from visual_sgraphs_tpu.scenegraph.state import (
+from visual_sgraphs.config import CapacityConfig, OrbConfig
+from visual_sgraphs.core import lie
+from visual_sgraphs.scenegraph.manager import refine_points_semantic
+from visual_sgraphs.scenegraph.state import (
     WALL,
     empty_scenegraph,
     voxel_key,
     voxel_slot,
 )
-from visual_sgraphs_tpu.slam.map_state import empty_map
+from visual_sgraphs.slam.map_state import empty_map
 
 
 def _sg_with_wall(extent_x=(0.0, 8.0)):

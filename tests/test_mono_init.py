@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from visual_sgraphs_tpu.core import lie
-from visual_sgraphs_tpu.slam.mono_init import (
+from visual_sgraphs.core import lie
+from visual_sgraphs.slam.mono_init import (
     essential_ransac,
     homography_ransac,
     recover_pose_homography,

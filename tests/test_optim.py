@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from visual_sgraphs_tpu.core import cameras, lie, plane as plane_mod
-from visual_sgraphs_tpu.optim import (
+from visual_sgraphs.core import cameras, lie, plane as plane_mod
+from visual_sgraphs.optim import (
     FactorBatch,
     GraphProblem,
     factors,

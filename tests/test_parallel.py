@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from visual_sgraphs_tpu.core import cameras, lie
-from visual_sgraphs_tpu.parallel import make_mesh, sharded_ba
+from visual_sgraphs.core import cameras, lie
+from visual_sgraphs.parallel import make_mesh, sharded_ba
 
 
 def build_problem(rng, n_kf=8, n_pt=128):

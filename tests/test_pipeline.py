@@ -20,7 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from visual_sgraphs_tpu.config import (
+from visual_sgraphs.config import (
     CameraConfig,
     CapacityConfig,
     MappingConfig,
@@ -30,10 +30,10 @@ from visual_sgraphs_tpu.config import (
     SystemConfig,
     TrackingConfig,
 )
-from visual_sgraphs_tpu.core import geometry
-from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-from visual_sgraphs_tpu.scenegraph.manager import SceneGraphManager
-from visual_sgraphs_tpu.slam import SlamSystem
+from visual_sgraphs.core import geometry
+from visual_sgraphs.io.synthetic import SyntheticScene
+from visual_sgraphs.scenegraph.manager import SceneGraphManager
+from visual_sgraphs.slam import SlamSystem
 
 
 def _run_bench_config(depth: int, h: int, w: int, nfeat: int,
@@ -108,8 +108,8 @@ def test_pipelined_partial_batch_flush():
 @pytest.mark.slow
 def test_pipelined_bench_scale():
     """The exact bench.py operating point (640x480, 1000 features) on the
-    CPU backend: ATE must match the serial path's quality (bench gate is
-    0.05 on TPU; CPU backend matches numerics)."""
+    CPU backend: ATE must match the serial path's quality (the bench gate on the
+    GPU is 0.05; CPU backend matches numerics)."""
     system, rmse = _run_bench_config(8, 480, 640, 1000, 192)
     assert rmse <= 0.1, f"bench-scale pipelined ATE {rmse:.3f}"
     assert system.loop_closer.n_loops_closed >= 1

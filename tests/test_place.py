@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from visual_sgraphs_tpu.core import lie
-from visual_sgraphs_tpu.place import (
+from visual_sgraphs.core import lie
+from visual_sgraphs.place import (
     add_keyframe,
     bow_vector,
     descend,
@@ -17,7 +17,7 @@ from visual_sgraphs_tpu.place import (
     optimize_essential_graph,
     ransac_sim3,
 )
-from visual_sgraphs_tpu.place.pgo import EssentialEdges, correct_map
+from visual_sgraphs.place.pgo import EssentialEdges, correct_map
 
 
 def _random_desc(rng, n):
@@ -184,17 +184,17 @@ class TestLoopClosingE2E:
     def test_loop_closes_on_synthetic_revisit(self):
         """RGB-D stream around a loop; verify a loop closure fires and the
         trajectory improves (LoopClosing::CorrectLoop end-to-end)."""
-        from visual_sgraphs_tpu.config import (
+        from visual_sgraphs.config import (
             CapacityConfig,
             OrbConfig,
             PlaceConfig,
             Sensor,
             SystemConfig,
         )
-        from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-        from visual_sgraphs_tpu.slam import SlamSystem
+        from visual_sgraphs.io.synthetic import SyntheticScene
+        from visual_sgraphs.slam import SlamSystem
 
-        from visual_sgraphs_tpu.core import geometry
+        from visual_sgraphs.core import geometry
 
         scene = SyntheticScene()  # 240x320: enough texture to stay locked
         cfg = SystemConfig(
@@ -229,8 +229,8 @@ class TestPnPReloc:
         """Reloc must succeed when the query pose differs from the
         candidate keyframe by >30 deg (the MLPnP role the warm-start hack
         could not fill)."""
-        from visual_sgraphs_tpu.core import cameras
-        from visual_sgraphs_tpu.place.pnp import ransac_pnp
+        from visual_sgraphs.core import cameras
+        from visual_sgraphs.place.pnp import ransac_pnp
 
         M = 150
         xw = jnp.asarray(

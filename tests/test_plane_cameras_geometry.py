@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from visual_sgraphs_tpu.core import cameras, geometry, lie, plane
+from visual_sgraphs.core import cameras, geometry, lie, plane
 
 
 # ---------------------------------------------------------------- plane chart
@@ -167,10 +167,10 @@ def test_kb8_frame_pipeline_tracks():
 
     import jax
 
-    from visual_sgraphs_tpu.config import CameraConfig, OrbConfig
-    from visual_sgraphs_tpu.core import cameras
-    from visual_sgraphs_tpu.io.synthetic import SyntheticScene, render
-    from visual_sgraphs_tpu.slam.frame import make_frame_obs
+    from visual_sgraphs.config import CameraConfig, OrbConfig
+    from visual_sgraphs.core import cameras
+    from visual_sgraphs.io.synthetic import SyntheticScene, render
+    from visual_sgraphs.slam.frame import make_frame_obs
 
     scene = SyntheticScene(h=240, w=320)
     cam = dataclasses.replace(

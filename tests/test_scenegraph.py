@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from visual_sgraphs_tpu.core import lie, plane as plane_mod
-from visual_sgraphs_tpu.io.synthetic import SyntheticScene, render
-from visual_sgraphs_tpu.scenegraph import (
+from visual_sgraphs.core import lie, plane as plane_mod
+from visual_sgraphs.io.synthetic import SyntheticScene, render
+from visual_sgraphs.scenegraph import (
     GROUND,
     WALL,
     SceneGraphManager,
@@ -14,13 +14,13 @@ from visual_sgraphs_tpu.scenegraph import (
     ransac_plane,
     voxel_downsample,
 )
-from visual_sgraphs_tpu.scenegraph.manager import (
+from visual_sgraphs.scenegraph.manager import (
     associate_and_update,
     detect_planes_from_depth,
     detect_rooms,
 )
-from visual_sgraphs_tpu.scenegraph.pointcloud import backproject_depth
-from visual_sgraphs_tpu.scenegraph.state import (
+from visual_sgraphs.scenegraph.pointcloud import backproject_depth
+from visual_sgraphs.scenegraph.state import (
     UNDEFINED,
     empty_scenegraph,
     plane_semantics,
@@ -211,8 +211,8 @@ def test_corridor_from_two_walls():
 
 def _mini_slam_problem(rng, noise=0.02):
     """Small KF/point/plane problem with known GT for joint-BA tests."""
-    from visual_sgraphs_tpu.config import CapacityConfig, OrbConfig
-    from visual_sgraphs_tpu.slam.map_state import empty_map
+    from visual_sgraphs.config import CapacityConfig, OrbConfig
+    from visual_sgraphs.slam.map_state import empty_map
 
     K_, N_, F_ = 6, 200, 64
     m = empty_map(CapacityConfig(max_keyframes=16, max_points=512),
@@ -237,7 +237,7 @@ def _mini_slam_problem(rng, noise=0.02):
     uv_all, d_all = [], []
     for k in range(K_):
         p_cam = lie.se3_apply(gt_pose[k], gt_pts[obs[k]])
-        from visual_sgraphs_tpu.core import cameras
+        from visual_sgraphs.core import cameras
         uv = cameras.project_pinhole(cam_K, p_cam)
         uv_all.append(uv + rng.normal(size=uv.shape).astype(np.float32) * 0.3)
         d_all.append(p_cam[:, 2])
@@ -273,10 +273,10 @@ def _mini_slam_problem(rng, noise=0.02):
 def test_plane_factors_reduce_error(rng):
     """Joint BA with plane-KF + Gij quadric factors beats plane-free LBA on
     keyframe pose error (the Optimizer.cc:2049-2260 semantics gate)."""
-    from visual_sgraphs_tpu.config import SceneGraphConfig
-    from visual_sgraphs_tpu.core import plane as plane_mod
-    from visual_sgraphs_tpu.scenegraph.joint_ba import scenegraph_local_ba
-    from visual_sgraphs_tpu.slam import mapping
+    from visual_sgraphs.config import SceneGraphConfig
+    from visual_sgraphs.core import plane as plane_mod
+    from visual_sgraphs.scenegraph.joint_ba import scenegraph_local_ba
+    from visual_sgraphs.slam import mapping
 
     m, gt_pose, gt_pts, cam_K = _mini_slam_problem(rng, noise=0.03)
     K_ = 6
@@ -348,8 +348,8 @@ def test_plane_factors_reduce_error(rng):
 def test_room_and_door_factors_in_joint_ba(rng):
     """Room centers re-derive from walls and door keeps its room offset
     through the solve (EdgeVertex4Plane... / EdgeSE3DoorProjectSE3Room)."""
-    from visual_sgraphs_tpu.config import SceneGraphConfig
-    from visual_sgraphs_tpu.scenegraph.joint_ba import scenegraph_local_ba
+    from visual_sgraphs.config import SceneGraphConfig
+    from visual_sgraphs.scenegraph.joint_ba import scenegraph_local_ba
 
     m, gt_pose, gt_pts, cam_K = _mini_slam_problem(rng, noise=0.0)
     sg = empty_scenegraph()
@@ -390,7 +390,7 @@ def test_room_and_door_factors_in_joint_ba(rng):
 def test_multi_room_detection():
     """Two adjacent rooms' walls -> two 4-wall room candidates with the
     right wall sets (multi-candidate detectMapRoomCandidate)."""
-    from visual_sgraphs_tpu.scenegraph.manager import detect_rooms
+    from visual_sgraphs.scenegraph.manager import detect_rooms
 
     sg = empty_scenegraph()
     # room A: x in [-2, 2], z in [0, 4]; room B: x in [-2, 2], z in [5, 9]
@@ -425,8 +425,8 @@ def test_multi_room_detection():
 def test_filter_semantic_planes():
     """Tilted 'wall' and elevated 'ground' lose their semantics against the
     dominant ground reference (SemanticsManager.cc:65-113)."""
-    from visual_sgraphs_tpu.scenegraph.manager import filter_semantic_planes
-    from visual_sgraphs_tpu.scenegraph.state import plane_semantics
+    from visual_sgraphs.scenegraph.manager import filter_semantic_planes
+    from visual_sgraphs.scenegraph.state import plane_semantics
 
     sg = empty_scenegraph()
     rows = [
@@ -458,7 +458,7 @@ def test_filter_semantic_planes():
 
 
 def test_reassociate_merges_close_planes():
-    from visual_sgraphs_tpu.scenegraph.manager import reassociate_planes
+    from visual_sgraphs.scenegraph.manager import reassociate_planes
 
     sg = empty_scenegraph()
     for i, d in enumerate((2.0, 2.05)):
@@ -490,9 +490,9 @@ def test_plane_covis_bonus():
     """Two keyframes sharing a plane get a covisibility bonus even with
     zero shared map points (KeyFrame::UpdateConnections plane weighting,
     KeyFrame.cc:486-523); undefined planes count at 0.2x."""
-    from visual_sgraphs_tpu.config import CapacityConfig
-    from visual_sgraphs_tpu.scenegraph.manager import plane_covis_bonus
-    from visual_sgraphs_tpu.scenegraph.state import WALL, empty_scenegraph
+    from visual_sgraphs.config import CapacityConfig
+    from visual_sgraphs.scenegraph.manager import plane_covis_bonus
+    from visual_sgraphs.scenegraph.state import WALL, empty_scenegraph
 
     sg = empty_scenegraph(CapacityConfig(max_planes=8), max_obs=64)
     # plane 0: semantic wall (enough votes), observed by KFs 0 and 3
@@ -520,16 +520,16 @@ def test_refine_points_semantic_culls_behind_wall():
     camera, beyond the margin, within the plane's extent) are culled and
     unlinked; points in front of / on the wall survive
     (Optimizer.cc:1271-1336 semantic map-point refinement)."""
-    from visual_sgraphs_tpu.config import CapacityConfig, OrbConfig
-    from visual_sgraphs_tpu.core import lie as _lie
-    from visual_sgraphs_tpu.scenegraph.manager import refine_points_semantic
-    from visual_sgraphs_tpu.scenegraph.state import (
+    from visual_sgraphs.config import CapacityConfig, OrbConfig
+    from visual_sgraphs.core import lie as _lie
+    from visual_sgraphs.scenegraph.manager import refine_points_semantic
+    from visual_sgraphs.scenegraph.state import (
         WALL,
         empty_scenegraph,
         voxel_key,
         voxel_slot,
     )
-    from visual_sgraphs_tpu.slam.map_state import empty_map
+    from visual_sgraphs.slam.map_state import empty_map
 
     m = empty_map(CapacityConfig(max_keyframes=4, max_points=64),
                   OrbConfig(n_features=8))

@@ -3,7 +3,7 @@
 The reference corrects map points through per-keyframe Sim3s on loop
 closure (LoopClosing.cc:1010-1035) and migrates Planes/Rooms/Doors/Markers
 between maps in MergeLocal (LoopClosing.cc:1552-1683).  These tests pin the
-TPU equivalents: place/pgo.correct_scenegraph and
+equivalents here: place/pgo.correct_scenegraph and
 slam/atlas.merge_scenegraphs.
 """
 
@@ -11,13 +11,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from visual_sgraphs_tpu.config import CapacityConfig, OrbConfig
-from visual_sgraphs_tpu.core import lie
-from visual_sgraphs_tpu.core import plane as plane_mod
-from visual_sgraphs_tpu.place import pgo
-from visual_sgraphs_tpu.scenegraph.state import empty_scenegraph
-from visual_sgraphs_tpu.slam import atlas as atlas_mod
-from visual_sgraphs_tpu.slam.map_state import empty_map
+from visual_sgraphs.config import CapacityConfig, OrbConfig
+from visual_sgraphs.core import lie
+from visual_sgraphs.core import plane as plane_mod
+from visual_sgraphs.place import pgo
+from visual_sgraphs.scenegraph.state import empty_scenegraph
+from visual_sgraphs.slam import atlas as atlas_mod
+from visual_sgraphs.slam.map_state import empty_map
 
 
 def _cap():

@@ -9,15 +9,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from visual_sgraphs_tpu.config import (
+from visual_sgraphs.config import (
     CapacityConfig,
     OrbConfig,
     Sensor,
     SystemConfig,
 )
-from visual_sgraphs_tpu.core import geometry
-from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-from visual_sgraphs_tpu.slam import SlamSystem
+from visual_sgraphs.core import geometry
+from visual_sgraphs.io.synthetic import SyntheticScene
+from visual_sgraphs.slam import SlamSystem
 
 
 def small_config(scene, sensor=Sensor.RGBD):

@@ -8,29 +8,25 @@ blur, exposure drift) through the FULL system at the bench operating
 point, exports the trajectory in TUM format through the repo's own saver
 (System::SaveTrajectoryTUM equivalent), re-parses it, timestamp-associates
 against ground truth and Horn-aligns — the same offline pipeline the
-reference's evaluate_ate_scale.py runs — and writes EVAL_r05.json.
+reference's evaluate_ate_scale.py runs — and writes one JSON record per
+level to the file given on the command line:
+
+    python tools/eval_hostile.py --out hostile.json [--frames 192]
 """
 
+import argparse
 import json
 import os
-import socket
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.expanduser(f"~/.jax_cache/{socket.gethostname()}"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
 import jax.numpy as jnp
 import numpy as np
 
-from visual_sgraphs_tpu.config import (
+from visual_sgraphs.config import (
     CapacityConfig,
     MappingConfig,
     OrbConfig,
@@ -39,10 +35,10 @@ from visual_sgraphs_tpu.config import (
     SystemConfig,
     TrackingConfig,
 )
-from visual_sgraphs_tpu.core import geometry, lie
-from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-from visual_sgraphs_tpu.scenegraph.manager import SceneGraphManager
-from visual_sgraphs_tpu.slam import SlamSystem
+from visual_sgraphs.core import geometry
+from visual_sgraphs.io.synthetic import SyntheticScene
+from visual_sgraphs.scenegraph.manager import SceneGraphManager
+from visual_sgraphs.slam import SlamSystem
 
 
 def parse_tum(text: str):
@@ -73,9 +69,17 @@ def associate(ts_a, ts_b, max_dt=0.02):
     return pairs
 
 
-def main(n_frames: int = 192):
-    run_one(n_frames, "depth")
-    run_one(n_frames, "full")
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", required=True, help="JSON output file")
+    ap.add_argument("--frames", type=int, default=192)
+    args = ap.parse_args(argv)
+    from visual_sgraphs.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    records = [run_one(args.frames, level) for level in ("depth", "full")]
+    with open(args.out, "w") as f:
+        json.dump(records, f, indent=1)
 
 
 def run_one(n_frames: int, level: str):
@@ -86,7 +90,7 @@ def run_one(n_frames: int, level: str):
     reported honestly: the photometric side still breaks tracking (ATE
     >1 m) and is the known next robustness frontier (the ORB front end
     needs blur-aware matching thresholds / gain-normalized scoring)."""
-    from visual_sgraphs_tpu.io.degrade import DegradeParams
+    from visual_sgraphs.io.degrade import DegradeParams
 
     params = (DegradeParams(blur_px=0.0, exposure_amp=0.0,
                             intensity_sigma=0.0)
@@ -151,18 +155,8 @@ def run_one(n_frames: int, level: str):
         "device": jax.devices()[0].device_kind,
     }
     print(json.dumps(out))
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    path = os.path.join(root, "EVAL_r05.json")
-    existing = []
-    if os.path.exists(path):
-        with open(path) as f:
-            prev = json.load(f)
-            existing = prev if isinstance(prev, list) else [prev]
-    existing = [e for e in existing if e.get("metric") != out["metric"]]
-    existing.append(out)
-    with open(path, "w") as f:
-        json.dump(existing, f, indent=1)
+    return out
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 192)
+    main()

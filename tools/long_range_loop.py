@@ -1,33 +1,28 @@
 """Long-stream harness: loop closure across a multi-hundred-keyframe gap.
 
-VERDICT r4 task #4: demonstrate place recognition at range — K >= 512 live
+Demonstrates place recognition at range — K >= 512 live
 keyframes, a loop verified across a >= 300-keyframe sequence gap, no
 capacity eviction (the reference never evicts for capacity; it only culls
 redundant KFs, LocalMapping.cc:898).  Runs one 1.25-lap "bigloop" pass
-through the 24x20 m synthetic hall (io/synthetic.py) on the live backend
-and writes LONGRUN_r05.json.
+through the 24x20 m synthetic hall (io/synthetic.py) on the default
+backend and writes its JSON record to the file given on the command line:
+
+    python tools/long_range_loop.py --out longrun.json [--frames 1600]
 """
 
+import argparse
 import json
 import os
-import socket
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.expanduser(f"~/.jax_cache/{socket.gethostname()}"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
 import jax.numpy as jnp
 import numpy as np
 
-from visual_sgraphs_tpu.config import (
+from visual_sgraphs.config import (
     CapacityConfig,
     MappingConfig,
     OrbConfig,
@@ -36,12 +31,20 @@ from visual_sgraphs_tpu.config import (
     SystemConfig,
     TrackingConfig,
 )
-from visual_sgraphs_tpu.core import geometry
-from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-from visual_sgraphs_tpu.slam import SlamSystem
+from visual_sgraphs.core import geometry
+from visual_sgraphs.io.synthetic import SyntheticScene
+from visual_sgraphs.slam import SlamSystem
 
 
-def main(n_frames: int = 1600):
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", required=True, help="JSON output file")
+    ap.add_argument("--frames", type=int, default=1600)
+    args = ap.parse_args(argv)
+    from visual_sgraphs.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    n_frames = args.frames
     scene = SyntheticScene(h=240, w=320, room="hall")
     cfg = SystemConfig(
         sensor=Sensor.RGBD,
@@ -104,10 +107,9 @@ def main(n_frames: int = 1600):
         "device": jax.devices()[0].device_kind,
     }
     print(json.dumps(out))
-    with open(os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "LONGRUN_r05.json"), "w") as f:
+    with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 1600)
+    main()

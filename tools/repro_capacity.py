@@ -26,7 +26,7 @@ def main():
 
     from collections import Counter
 
-    from visual_sgraphs_tpu.config import (
+    from visual_sgraphs.config import (
         CameraConfig,
         CapacityConfig,
         MappingConfig,
@@ -36,9 +36,9 @@ def main():
         SystemConfig,
         TrackingConfig,
     )
-    from visual_sgraphs_tpu.core import geometry
-    from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-    from visual_sgraphs_tpu.slam import SlamSystem
+    from visual_sgraphs.core import geometry
+    from visual_sgraphs.io.synthetic import SyntheticScene
+    from visual_sgraphs.slam import SlamSystem
 
     h, w = 240, 320
     cam = CameraConfig(

@@ -30,7 +30,7 @@ def main():
     n_frames = int(sys.argv[5]) if len(sys.argv) > 5 else 192
 
     import os as _os
-    from visual_sgraphs_tpu.config import (
+    from visual_sgraphs.config import (
         CameraConfig,
         CapacityConfig,
         MappingConfig,
@@ -40,10 +40,10 @@ def main():
         SystemConfig,
         TrackingConfig,
     )
-    from visual_sgraphs_tpu.core import geometry
-    from visual_sgraphs_tpu.io.synthetic import SyntheticScene
-    from visual_sgraphs_tpu.scenegraph.manager import SceneGraphManager
-    from visual_sgraphs_tpu.slam import SlamSystem
+    from visual_sgraphs.core import geometry
+    from visual_sgraphs.io.synthetic import SyntheticScene
+    from visual_sgraphs.scenegraph.manager import SceneGraphManager
+    from visual_sgraphs.slam import SlamSystem
 
     cam = CameraConfig(
         fx=517.3 * w / 640, fy=516.5 * h / 480,
@@ -99,8 +99,8 @@ def main():
         jnp.asarray(est[mask]), jnp.asarray(np.stack(gt)[mask])
     )
     # per-frame aligned error profile: where along the stream is the error?
-    from visual_sgraphs_tpu.core import geometry as _geo
-    from visual_sgraphs_tpu.core import lie as _lie
+    from visual_sgraphs.core import geometry as _geo
+    from visual_sgraphs.core import lie as _lie
 
     gt_arr = jnp.asarray(np.stack(gt))
     est_arr = jnp.asarray(est)
